@@ -11,7 +11,7 @@ non-positive depth; erase observations, drop landmarks observed once,
 :1127-1219) -> optimize OptimizationIterations -> second prune -> write back
 poses, landmark positions and viewing normals (:1221-1265).
 
-The solver is the TPU-native counterpart of g2o BlockSolver_6_3: landmark
+The solver is the JAX counterpart of g2o BlockSolver_6_3: landmark
 3x3 blocks are inverted locally and the reduced 6Vx6V camera system is
 assembled densely and solved with LM damping — exactly the Schur trick the
 reference requests via setMarginalized(true) (:1073). Projection-edge
@@ -290,9 +290,9 @@ def _pad_bucket(n, base=8):
 
 
 # Windowed-BA capacity classes: (cap_v, cap_l, cap_pe, cap_pr). Round 4's
-# four INDEPENDENT power-of-two buckets produced a fresh multi-second remote
+# four INDEPENDENT power-of-two buckets produced a fresh multi-second
 # compile for every new (cap_v, cap_l, cap_pe, cap_pr) combination a growing
-# map walked through (VERDICT r4 weak 1: windowed_ba means 2.6-6.5 s).
+# map walked through.
 # Coupled classes bound the whole run to <=3 executable shapes per iteration
 # count, all pre-warmable at startup. Bounds derive from the reference's own
 # caps: landmarks <= 500/keyframe (ORBmatcher.cpp:1166) x a top-10+1
@@ -457,7 +457,7 @@ def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, mesh=None,
             # landmarks/projections sharded by owner, pose system psummed
             from ..parallel import sharded_ba
             n_dev = mesh.shape[mesh_axis]
-            sharded, permv, _ = sharded_ba.shard_ba_problem(
+            sharded, slot, _ = sharded_ba.shard_ba_problem(
                 n_dev, np.asarray(args[1]), np.asarray(args[3]),
                 np.asarray(args[9]), np.asarray(args[10]),
                 np.asarray(args[11]), np.asarray(args[12]),
@@ -469,8 +469,7 @@ def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, mesh=None,
                 np.asarray(args[0]), np.asarray(args[2]), sharded, K,
                 iters, delta, mesh, mesh_axis, mesh_solver)
             E_opt, L_sh = run(np.asarray(args[0]), *sargs)
-            L_full = np.asarray(L_sh).reshape(-1, 3)
-            L_opt = jnp.asarray(L_full[np.argsort(permv)])
+            L_opt = jnp.asarray(np.asarray(L_sh).reshape(-1, 3)[slot])
             return E_opt, L_opt
 
         # stage 1: 5 iterations, prune, then the full run + second prune.
@@ -504,7 +503,7 @@ def make_windowed_ba(cam: CameraConfig, cfg: SlamConfig, mesh=None,
         size classes — both schedule stages (5 and OptimizationIterations)
         plus the pruning-error pass — on dummy all-masked problems, so the
         first keyframe events of a run find warm executables instead of
-        paying the multi-second remote compile inline (VERDICT r4 next 1).
+        paying the multi-second compile inline.
         Meant to run on a startup background thread (app.run_slam)."""
         delta = float(cfg.RobustKernelDelta if cfg.UseRobustKernel else 0.0)
         Kj = jnp.asarray(K, jnp.float32)

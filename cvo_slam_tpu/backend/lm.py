@@ -1,6 +1,6 @@
 """Batched Levenberg–Marquardt pose-graph solver (the g2o replacement).
 
-TPU-native re-expression of the reference solver stack: g2o
+JAX re-expression of the reference solver stack: g2o
 BlockSolver_6_3 + LinearSolverEigen + OptimizationAlgorithmLevenberg
 (/root/reference/src/local_map.cpp:85-92) with the custom SE(3) types of
 /root/reference/src/vertex_and_edge.{h,cpp}:

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native CVO-SLAM framework.
+"""Configuration for the JAX CVO-SLAM framework.
 
 One serializable dataclass layer replacing the reference's two config systems:
 the hand-rolled ``name value`` parser for SLAM params (reference
@@ -38,10 +38,6 @@ class CameraConfig:
     orb_ini_th_fast: int = 20
     orb_min_th_fast: int = 7
     orb_keypoint_distance: float = 0.0
-    # "opencv": one C++ cv2.ORB call (fast, learned rBRIEF pattern);
-    # "reference": the ORB-SLAM2-parity numpy extractor (per-level grid FAST
-    # + quadtree distribution + own BRIEF pattern)
-    orb_backend: str = "opencv"
 
 
 # Per-dataset presets (values from reference config/*.yaml; the ETH3D split
@@ -89,10 +85,10 @@ class CvoParams:
     # (our default) restarts each alignment at ell_init: on the
     # fast_rotation challenge mode the carried fine ell made the tracker
     # blind to a 2.2 cm inter-frame motion and slipped a whole trajectory
-    # segment (tracking ATE 0.0047 -> 0.0015 with reset; PERF_NOTES round
-    # 5). Set False for strict reference parity (SURVEY hard-part 2 asks
-    # for the quirk to be reproduced or consciously fixed with documented
-    # impact — this is the documented fix).
+    # segment (tracking ATE 0.0047 -> 0.0015 with reset). Set False for
+    # strict reference parity (SURVEY hard-part 2 asks for the quirk to be
+    # reproduced or consciously fixed with documented impact — this is the
+    # documented fix).
     ell_anneal_iters: tuple = (2, 9, 19)
     ell_anneal_values: tuple = (0.10, 0.06, 0.03)
     ell_reset: bool = True
@@ -116,7 +112,7 @@ class FrontendParams:
     # fixed-capacity point-cloud slots (24*128). The selector lands within
     # ~1% of num_want (measured 2998-3008 on the bench scenes), so 3072
     # holds every selected point while cutting the dense pairwise work 1.36x
-    # vs the former 3584 (VERDICT r4 next 2a); overflow beyond capacity
+    # vs the former 3584; overflow beyond capacity
     # truncates in raster order, exactly as before.
     cloud_capacity: int = 3072
     pyr_levels: int = 3             # data_type.h:25

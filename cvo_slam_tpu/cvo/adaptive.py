@@ -24,7 +24,7 @@ diff_yy but not its squared norm), so most Ayy terms silently contribute
 zero there; since the component is not part of the reference's active
 build, this module implements the mathematically intended reduction.
 
-TPU-first notes: |x_i-x_j|^2 and |y_i-y_j|^2 are invariant under the rigid
+Design notes: |x_i-x_j|^2 and |y_i-y_j|^2 are invariant under the rigid
 update, so both self-distance matrices (geometric + color) are computed
 ONCE per alignment and carried as while_loop constants; each iteration
 re-kernels them with the current ell via elementwise ops only (no matmuls)

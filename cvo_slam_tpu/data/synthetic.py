@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import os
 
-import cv2
 import numpy as np
 
 from ..config import CameraConfig
 from ..ops import se3
+from ..utils import imgproc
 import jax.numpy as jnp
 
 
@@ -35,7 +35,7 @@ def _base_scene(cam: CameraConfig, rng, texture_strength: float = 1.0,
     W = int(round(cam.width * extent))
     base = rng.uniform(0, 255, (max(H // 8, 2), max(W // 8, 2))
                        ).astype(np.float32)
-    tex = cv2.resize(base, (W, H), interpolation=cv2.INTER_CUBIC)
+    tex = imgproc.resize_cubic(base, (W, H))
     tex = 127.5 + texture_strength * (tex - 127.5)
     bgr = np.stack([tex,
                     127.5 + texture_strength * (np.roll(tex, 3, 0) - 127.5),
@@ -59,10 +59,9 @@ def _base_scene(cam: CameraConfig, rng, texture_strength: float = 1.0,
             x0 = int(rng.uniform(0, W - sw))
             y0 = int(rng.uniform(0, H - sh))
             zs = rng.uniform(0.9, 1.6)
-            slab_tex = cv2.resize(
+            slab_tex = imgproc.resize_cubic(
                 rng.uniform(0, 255, (max(sh // 6, 2), max(sw // 6, 2))
-                            ).astype(np.float32), (sw, sh),
-                interpolation=cv2.INTER_CUBIC)
+                            ).astype(np.float32), (sw, sh))
             slab_tex = 127.5 + texture_strength * (slab_tex - 127.5)
             wave = 0.03 * np.sin(np.linspace(0, 4, sw))[None, :]
             z[y0:y0 + sh, x0:x0 + sw] = zs + wave
@@ -135,7 +134,7 @@ def apply_sensor_noise(bgr, depth_u16, cam: CameraConfig, rng,
                 py = cy_ + t * (L - 1) * np.sin(ang)
                 kern[int(round(py)), int(round(px))] += 1.0
             kern /= kern.sum()
-            out = cv2.filter2D(out, -1, kern)
+            out = imgproc.filter2d(out, kern)
     if rgb_sigma > 0:
         out = out + rng.normal(0.0, rgb_sigma, out.shape)
     return np.clip(out, 0, 255).astype(np.uint8), depth_out
@@ -193,8 +192,8 @@ def make_sequence(folder: str, cam: CameraConfig, n_frames: int = 12,
     SS = 3 if extent == 1.0 else 2
     Hw, Ww = bgr0.shape[:2]
     Hs, Ws = Hw * SS, Ww * SS
-    bgr_s = cv2.resize(bgr0, (Ws, Hs), interpolation=cv2.INTER_LINEAR)
-    z_s = cv2.resize(z0, (Ws, Hs), interpolation=cv2.INTER_LINEAR)
+    bgr_s = imgproc.resize_linear(bgr0, (Ws, Hs))
+    z_s = imgproc.resize_linear(z0, (Ws, Hs))
     ys_s, xs_s = np.mgrid[0:Hs, 0:Ws]
     # native-res pixel coordinates in the FRAME-0 camera (world crop offset
     # removed, so extent > 1 sheets extend symmetrically past the frustum)
@@ -249,8 +248,8 @@ def make_sequence(folder: str, cam: CameraConfig, n_frames: int = 12,
         G_prev = G.copy()
         rgb_rel = f"rgb/{ts}.png"
         dep_rel = f"depth/{ts}.png"
-        cv2.imwrite(os.path.join(folder, rgb_rel), bgr)
-        cv2.imwrite(os.path.join(folder, dep_rel), depth)
+        imgproc.write_png(os.path.join(folder, rgb_rel), bgr)
+        imgproc.write_png(os.path.join(folder, dep_rel), depth)
         assoc.append(f"{ts} {rgb_rel} {ts} {dep_rel}")
         gt.append(np.linalg.inv(G))   # cam->world pose of frame k
         G = G_step @ G

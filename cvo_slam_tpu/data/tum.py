@@ -12,9 +12,10 @@ import os
 from dataclasses import dataclass
 from typing import List
 
-import cv2
 import numpy as np
 from scipy.spatial.transform import Rotation
+
+from ..utils import imgproc
 
 
 @dataclass
@@ -28,7 +29,7 @@ class FrameRecord:
 class ImagePair:
     """Reference cvo_slam::Image (include/cvo_image.h:26-38)."""
     timestamp: str
-    bgr: np.ndarray      # (H,W,3) uint8, BGR channel order (cv::imread)
+    bgr: np.ndarray      # (H,W,3) uint8, BGR channel order (as cv::imread)
     gray: np.ndarray     # (H,W) uint8 via COLOR_RGB2GRAY on BGR (quirk kept)
     depth: np.ndarray    # (H,W) uint16 raw
     # optional precomputed frontend output (data.prefetch pipelines the host
@@ -51,13 +52,16 @@ def load_association(path: str) -> List[FrameRecord]:
 
 def load_image(folder: str, rec: FrameRecord) -> ImagePair:
     """Load one RGB-D pair (run_SLAM.cpp:134-143)."""
-    bgr = cv2.imread(os.path.join(folder, rec.rgb_path))
-    depth = cv2.imread(os.path.join(folder, rec.depth_path), cv2.IMREAD_ANYDEPTH)
-    if bgr is None or depth is None:
-        raise FileNotFoundError(f"missing frame {rec.rgb_path} / {rec.depth_path}")
+    rgb_path = os.path.join(folder, rec.rgb_path)
+    depth_path = os.path.join(folder, rec.depth_path)
+    for path in (rgb_path, depth_path):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"missing frame {path}")
+    bgr = imgproc.imread_color(rgb_path)
+    depth = imgproc.imread_depth(depth_path)
     # reference quirk: RGB2GRAY coefficients applied to BGR data
     # (pcd_generator.cpp:624 on cv::imread output)
-    gray = cv2.cvtColor(bgr, cv2.COLOR_RGB2GRAY)
+    gray = imgproc.rgb2gray(bgr)
     return ImagePair(rec.timestamp, bgr, gray, depth.astype(np.uint16))
 
 

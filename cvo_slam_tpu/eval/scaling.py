@@ -10,9 +10,9 @@ all) at 1/2/4/8 mesh devices:
     delta) — the correctness half of the artifact;
   * scaling efficiency normalized to the 1-device mesh time.
 
-On real TPU pod slices the mesh devices are physical chips and the psum rides
-ICI; in this container the mesh is XLA_FLAGS=--xla_force_host_platform_
-device_count virtual CPU devices sharing 2 physical cores, so wall-clock
+On a multi-GPU host the mesh devices are physical cards and the psum rides
+NVLink; on a CPU the mesh is XLA_FLAGS=--xla_force_host_platform_
+device_count virtual CPU devices sharing the host's cores, so wall-clock
 efficiency is bounded by core count — the JSON records host_cpus so readers
 can interpret the numbers. The collective structure measured (per-shard
 linearization + psum-reduced normal equations) is identical on real meshes.
@@ -218,7 +218,7 @@ def bench_ba(n_poses, n_lm, iters, repeats, devices):
     base = {}
     for n_dev in devices:
         mesh = Mesh(np.array(jax.devices()[:n_dev]), ("dp",))
-        sharded, perm, per_dev = sharded_ba.shard_ba_problem(
+        sharded, _, per_dev = sharded_ba.shard_ba_problem(
             n_dev, L0, lm_mask, p_kf, p_lm, p_meas, p_w, p_mask,
             ei, ej, Z, om, pemask)
         E0j = jnp.asarray(E0)
@@ -252,7 +252,7 @@ def run_harness(out_path, poses=48, landmarks=96, iters=10, repeats=3,
         host_cpus=os.cpu_count(),
         note=("wall-clock efficiency on virtual devices is bounded by "
               "host_cpus; collective structure (per-shard linearization + "
-              "psum-assembled normal equations) matches real TPU meshes"),
+              "psum-assembled normal equations) matches real device meshes"),
         lm=bench_lm(poses, iters, repeats, devices),
         # the distributed Schur BA exists for the LARGE-graph regime; a
         # 12-pose/96-landmark toy (round 4) became overhead-bound once the

@@ -10,8 +10,10 @@ always true inside the image), and pairwise-distinct beyond
 `keypoint_distance` (default 0 => exact-duplicate dedupe).
 
 Implementation notes (deviations, documented):
-  * FAST / resize / GaussianBlur use OpenCV directly (the reference links the
-    same library); the octree spatial distribution is a quadtree on numpy.
+  * FAST, the pyramid resize and the Gaussian blur come from utils.imgproc
+    (FAST-9 with OpenCV's corner score and non-maximum suppression; the
+    resize and blur agree with OpenCV's to within one gray level); the
+    octree spatial distribution is a quadtree on numpy.
   * the BRIEF sampling pattern is our own deterministic 256-pair layout
     (seeded Gaussian pairs in the 31x31 patch, the standard BRIEF recipe) —
     the reference's learned table is ORB-SLAM2 data we deliberately do not
@@ -24,10 +26,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 
-import cv2
 import numpy as np
 
 from ..config import CameraConfig, SlamConfig
+from ..utils import imgproc
 
 HALF_PATCH = 15
 EDGE_THRESHOLD = 19
@@ -109,8 +111,6 @@ class OrbExtractor:
             n_desired *= factor
         budgets.append(max(p.n_features - total, 0))
         self.budgets = budgets
-        self._fast_hi = cv2.FastFeatureDetector_create(p.ini_th_fast)
-        self._fast_lo = cv2.FastFeatureDetector_create(p.min_th_fast)
 
     # -- detection ---------------------------------------------------------
     def _detect_level(self, img: np.ndarray, budget: int):
@@ -129,18 +129,15 @@ class OrbExtractor:
         if x1 - x0 < 7 or y1 - y0 < 7:
             return np.zeros((0, 2), np.float32), np.zeros(0, np.float32)
 
-        def detect(det):
-            found = det.detect(img[y0:y1, x0:x1])
-            if not found:
-                return (np.zeros((0, 2), np.float32),
-                        np.zeros(0, np.float32))
-            pts = np.array([k.pt for k in found], np.float32)
-            pts += np.float32([x0, y0])
-            resp = np.array([k.response for k in found], np.float32)
-            return pts, resp
+        roi = img[y0:y1, x0:x1]
+        scores = imgproc.fast_scores(roi)     # shared by both thresholds
 
-        pts_hi, resp_hi = detect(self._fast_hi)
-        pts_lo, resp_lo = detect(self._fast_lo)
+        def detect(threshold):
+            xy, resp = imgproc.fast9(roi, threshold, scores)
+            return (xy + np.array([x0, y0])).astype(np.float32), resp
+
+        pts_hi, resp_hi = detect(self.p.ini_th_fast)
+        pts_lo, resp_lo = detect(self.p.min_th_fast)
         ncx = max((x1 - x0 + cell - 1) // cell, 1)
 
         def cell_id(pts):
@@ -320,7 +317,7 @@ class OrbExtractor:
         for lvl in range(1, p.n_levels):
             sz = (int(round(gray.shape[1] * self.inv_scales[lvl])),
                   int(round(gray.shape[0] * self.inv_scales[lvl])))
-            pyramid.append(cv2.resize(gray, sz, interpolation=cv2.INTER_LINEAR))
+            pyramid.append(imgproc.resize_linear(gray, sz))
 
         h, w = gray.shape
         out_pts, out_ang, out_desc, out_oct = [], [], [], []
@@ -384,7 +381,7 @@ class OrbExtractor:
                 continue
             pts_l = pts[keep]
             ang = self._ic_angles(img, pts_l)
-            blurred = cv2.GaussianBlur(img, (7, 7), 2, borderType=cv2.BORDER_REFLECT_101)
+            blurred = imgproc.gaussian_blur(img, 7, 2.0)
             desc = self._descriptors(blurred, pts_l, ang)
             out_pts.append(pts_l * scale)
             out_ang.append(ang)
@@ -399,90 +396,13 @@ class OrbExtractor:
         return (kp, np.concatenate(out_ang), np.concatenate(out_desc))
 
 
-class OpenCVOrbExtractor:
-    """Fast ORB path: one cv2.ORB_create C++ call (pyramid + FAST + Harris
-    retention + IC angle + learned rBRIEF), then the same ExtractOrb gate
-    chain as the reference (ORBextractor.cpp:1114-1277): valid depth, CVO
-    selection present, exact-duplicate / min-distance dedupe.
-
-    ~10x faster than the numpy reference-parity extractor (OrbExtractor) and
-    uses OpenCV's learned descriptor pattern — the same library the
-    reference links. Selected with CameraConfig.orb_backend="opencv"."""
-
-    def __init__(self, p: OrbParams):
-        self.p = p
-        self.scales = p.scale_factor ** np.arange(p.n_levels)
-        self.level_sigma2 = self.scales ** 2
-        self.inv_level_sigma2 = 1.0 / self.level_sigma2
-        self._orb = cv2.ORB_create(
-            nfeatures=p.n_features, scaleFactor=p.scale_factor,
-            nlevels=p.n_levels, edgeThreshold=EDGE_THRESHOLD, firstLevel=0,
-            WTA_K=2, scoreType=cv2.ORB_HARRIS_SCORE, patchSize=PATCH_SIZE,
-            fastThreshold=p.min_th_fast)
-
-    def extract(self, gray: np.ndarray, depth_m: np.ndarray,
-                selected_pixels: np.ndarray):
-        kps, desc = self._orb.detectAndCompute(gray, None)
-        if not kps:
-            return (np.zeros((0, 3), np.float32), np.zeros(0, np.float32),
-                    np.zeros((0, 32), np.uint8))
-        pts0 = np.array([k.pt for k in kps], np.float32)
-        ang = np.array([k.angle for k in kps], np.float32)
-        octv = np.array([k.octave for k in kps], np.float32)
-        # process in level order (stable) to mirror the reference's
-        # level-by-level first-come-kept dedupe
-        order = np.argsort(octv, kind="stable")
-        pts0, ang, octv, desc = pts0[order], ang[order], octv[order], desc[order]
-        h, w = gray.shape
-        xi = np.clip(pts0[:, 0].astype(np.int64), 0, w - 1)
-        yi = np.clip(pts0[:, 1].astype(np.int64), 0, h - 1)
-        keep = depth_m[yi, xi] > 0.0               # depth gate
-        if selected_pixels is None or len(selected_pixels) == 0:
-            keep[:] = False                        # CVO gate
-        if np.any(keep):
-            sel = np.flatnonzero(keep)
-            ck = np.ascontiguousarray(
-                pts0[sel], np.float64).view(np.complex128).ravel()
-            _, first = np.unique(ck, return_index=True)
-            dup = np.ones(len(sel), bool)
-            dup[first] = False
-            if self.p.keypoint_distance > 0.0:
-                # min-distance gate: greedy first-come via grid hash
-                cell = max(np.sqrt(self.p.keypoint_distance), 1e-6)
-                grid = {}
-                for j in np.flatnonzero(~dup):
-                    i = sel[j]
-                    cx, cy = int(pts0[i, 0] / cell), int(pts0[i, 1] / cell)
-                    ok = True
-                    for gx in (cx - 1, cx, cx + 1):
-                        for gy in (cy - 1, cy, cy + 1):
-                            for q in grid.get((gx, gy), ()):
-                                if (q[0] - pts0[i, 0]) ** 2 + \
-                                   (q[1] - pts0[i, 1]) ** 2 \
-                                   <= self.p.keypoint_distance:
-                                    ok = False
-                                    break
-                    if ok:
-                        grid.setdefault((cx, cy), []).append(
-                            (pts0[i, 0], pts0[i, 1]))
-                    else:
-                        dup[j] = True
-            keep[sel[dup]] = False
-        if not np.any(keep):
-            return (np.zeros((0, 3), np.float32), np.zeros(0, np.float32),
-                    np.zeros((0, 32), np.uint8))
-        kp = np.concatenate([pts0[keep], octv[keep][:, None]], axis=1)
-        return kp, ang[keep], np.ascontiguousarray(desc[keep])
-
-
 def make_extractor(cam: CameraConfig):
     p = OrbParams(
         n_features=cam.orb_n_features, scale_factor=cam.orb_scale_factor,
         n_levels=cam.orb_n_levels, ini_th_fast=cam.orb_ini_th_fast,
         min_th_fast=cam.orb_min_th_fast,
         keypoint_distance=cam.orb_keypoint_distance)
-    backend = getattr(cam, "orb_backend", "opencv")
-    return OpenCVOrbExtractor(p) if backend == "opencv" else OrbExtractor(p)
+    return OrbExtractor(p)
 
 
 class KeyframeFeatureHook:

@@ -1,6 +1,6 @@
 """Device-side (jnp/XLA) frontend: pyramid, DSO selection, back-projection.
 
-TPU-native re-expression of the host frontend (pyramid.py / selector.py /
+Device re-expression of the host frontend (pyramid.py / selector.py /
 pointcloud.py, themselves re-expressions of reference pcd_generator.cpp:50-143
 and PixelSelector2.cpp) so the whole per-frame pipeline can run on device and
 be vmapped over frames/sequences (SURVEY.md section 7 phase 3). Semantics

@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ frontend (cvo_slam_tpu/native/).
 
-Builds `_selector.so` with g++ on first use (cached next to the source) and
-falls back to the NumPy implementation if no toolchain is available or
+Builds `_selector.so` (gitignored) with g++ from the committed source on
+first use, cached next to the source, and falls back to the NumPy
+implementation, with a logged warning, if no toolchain is available or
 CVO_SLAM_NATIVE=0 is set. Parity with the NumPy path is enforced by
 tests/test_native.py (bitwise-equal status maps).
 """
@@ -9,6 +10,7 @@ tests/test_native.py (bitwise-equal status maps).
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
 from functools import lru_cache
@@ -20,31 +22,38 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
 _SRC = os.path.join(_NATIVE_DIR, "selector.cpp")
 _SO = os.path.join(_NATIVE_DIR, "_selector.so")
 
+log = logging.getLogger(__name__)
+
 
 def _build() -> bool:
+    tmp = f"{_SO}.{os.getpid()}.tmp"     # concurrent builders do not collide
     try:
         src_mtime = os.path.getmtime(_SRC)
         if os.path.exists(_SO) and os.path.getmtime(_SO) >= src_mtime:
             return True
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-             "-o", _SO + ".tmp"],
+             "-o", tmp],
             check=True, capture_output=True, timeout=120)
-        os.replace(_SO + ".tmp", _SO)
+        os.replace(tmp, _SO)
         return True
-    except (OSError, subprocess.SubprocessError):
+    except (OSError, subprocess.SubprocessError) as exc:
+        log.warning("native selector build failed (%s); using the NumPy "
+                    "selector", exc)
         return False
 
 
 @lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
     if os.environ.get("CVO_SLAM_NATIVE", "1") == "0":
+        log.info("CVO_SLAM_NATIVE=0: using the NumPy selector")
         return None
     if not _build():
         return None
     try:
         lib = ctypes.CDLL(_SO)
-    except OSError:
+    except OSError as exc:
+        log.warning("cannot load %s (%s); using the NumPy selector", _SO, exc)
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

@@ -14,7 +14,7 @@ Fidelity notes:
     box) rather than raster-ordered: the CVO pairwise Pallas kernels skip
     whole (tile, tile) blocks whose bounding boxes are farther apart than the
     kernel gate radius, and Morton order makes tiles spatially compact (the
-    TPU analogue of the reference's nanoflann kd-tree, cvo.cpp:122-139).
+    dense-tile analogue of the reference's nanoflann kd-tree, cvo.cpp:122-139).
     Every consumer of the cloud/pixel arrays is order-insensitive (masked
     sums; set-style pixel gating in ORB extraction). Slots beyond `count`
     are masked.
@@ -96,10 +96,10 @@ def create_pointcloud(bgr: np.ndarray, gray: np.ndarray, depth: np.ndarray,
     if fp.feature_type == 0:
         # HSV + gradients normalized to ~[0,1] (pcd_generator.cpp:570-592).
         # The reference applies COLOR_RGB2HSV to the BGR-loaded image
-        # (load_image :625); cv2 with the same flag reproduces the channel
-        # quirk exactly.
-        import cv2
-        hsv = cv2.cvtColor(bgr, cv2.COLOR_RGB2HSV)
+        # (load_image :625); rgb2hsv on the BGR array reproduces the
+        # channel quirk exactly.
+        from ..utils.imgproc import rgb2hsv
+        hsv = rgb2hsv(bgr)
         features[:n, 0] = hsv[ys, xs, 0] / 180.0
         features[:n, 1] = hsv[ys, xs, 1] / 255.0
         features[:n, 2] = hsv[ys, xs, 2] / 255.0

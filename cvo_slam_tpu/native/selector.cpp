@@ -1,7 +1,7 @@
 // Native DSO pixel-selector hot loops (host-side frontend).
 //
 // C++ implementation of the per-frame selection passes — the host bottleneck
-// of the tracking pipeline (the TPU owns all point-cloud math; this feeds
+// of the tracking pipeline (the device owns all point-cloud math; this feeds
 // it). Semantics are identical to cvo_slam_tpu/frontend/selector.py (itself
 // a re-expression of reference PixelSelector2.cpp): per-32x32-block gradient
 // histogram quantiles with 3x3 smoothing, and the 3-level hierarchical

@@ -2,9 +2,10 @@
 
 The reference solves the quartic-energy derivative 4E s^3 + 3D s^2 + 2C s + B
 via a companion-matrix eigensolve and picks the smallest positive real root
-(cvo.cpp:76-92, 317-333). Nonsymmetric eigensolves are unavailable on TPU, so
-we use the closed-form (trig/Cardano) cubic solution instead — branch-free and
-jit/vmap friendly. Semantics preserved:
+(cvo.cpp:76-92, 317-333). A nonsymmetric eigensolve inside the jitted align
+loop would be a host-style LAPACK call, so we use the closed-form
+(trig/Cardano) cubic solution instead — branch-free and jit/vmap friendly.
+Semantics preserved:
 
   * only real roots count (discriminant decides, like imag()==0 in Eigen);
   * no positive real root -> min_step (cvo.cpp:330);

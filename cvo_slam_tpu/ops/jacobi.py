@@ -1,8 +1,8 @@
 """Fixed-sweep Jacobi eigenvalues for tiny symmetric matrices.
 
-XLA's generic `eigvalsh` lowers to an iterative algorithm whose serial
-latency on TPU is ~1.3 ms even for a single 6x6 — it dominated the fused
-innerproduct+Hessian dispatch (the reference's se3_Hessian eigenvalue floor,
+XLA's generic `eigvalsh` lowers to an iterative algorithm with a long
+serial latency even for a single 6x6, inside the fused innerproduct+Hessian
+dispatch (the reference's se3_Hessian eigenvalue floor,
 cvo.cpp:726-754, needs only the eigenvalues of a 6x6). This module provides
 a cyclic-by-rounds Jacobi sweep with a *parallel ordering*: each round
 rotates floor(n/2) disjoint (p, q) pairs at once via one combined Givens

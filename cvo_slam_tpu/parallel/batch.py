@@ -24,8 +24,6 @@ def batched_align(fixed: engine.PointCloud, moving: engine.PointCloud,
     """vmap of engine.align over a leading batch axis."""
     if backend == "auto":
         backend = engine.default_backend()
-    from .multi_sequence import _batch_backend
-    backend = _batch_backend(backend)
     fn = jax.vmap(lambda f, m, R, T, e: engine.align(f, m, R, T, e, p,
                                                      backend))
     return fn(fixed, moving, R0, T0, ell0)

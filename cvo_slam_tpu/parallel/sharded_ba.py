@@ -4,8 +4,8 @@ The multi-host form of backend.ba (SURVEY.md section 5.8 / BASELINE config 5):
 landmarks and their projection edges are sharded across the mesh axis; each
 device inverts its own landmark 3x3 blocks and computes its Schur corrections
 to the reduced camera system; the 6Vx6V reduced H and rhs are `psum`-reduced
-over ICI; the damped solve runs replicated; landmark back-substitution stays
-local to the owner shard. Pose edges are sharded arbitrarily.
+over the mesh; the damped solve runs replicated; landmark back-substitution
+stays local to the owner shard. Pose edges are sharded arbitrarily.
 
 Results are bitwise-independent of the shard count up to float reduction
 order (validated against backend.ba.optimize_ba on CPU meshes in
@@ -34,20 +34,25 @@ def shard_ba_problem(n_dev, L, lm_mask, p_kf, p_lm, p_meas, p_w, p_mask,
                      ei, ej, Z, omega, pemask, bucket_edges: bool = False):
     """Partition landmarks round-robin across devices and regroup projection
     edges with their landmark's owner; pad every per-device block to a common
-    size. Returns (sharded arrays dict, landmark permutation, per_dev).
+    size. Returns (sharded arrays dict, slot, per_dev): landmark i sits in
+    row slot[i] of the flattened (n_dev * per_dev, 3) landmark table, so
+    `L_sharded.reshape(-1, 3)[slot]` restores the input order.
+
+    Landmark i belongs to device i % n_dev, at row i // n_dev of that
+    device's block; each block is padded on its own (a landmark count that
+    is not a multiple of n_dev leaves the last rows of some blocks masked).
 
     bucket_edges=True pads the per-device projection-edge block to the next
     power of two so repeated problems of the same capacity class hit the
     cached executable (the raw max-count-per-device varies run to run)."""
     NL = L.shape[0]
     owner = np.arange(NL) % n_dev
-    perm = np.argsort(owner, kind="stable")       # landmarks grouped by device
-    inv_perm = np.argsort(perm)
-    per_dev = int(np.ceil(NL / n_dev))
-    # pad landmark table to n_dev * per_dev in permuted order
-    Lp = _pad_axis(L[perm], n_dev * per_dev)
-    lm_mask_p = _pad_axis(lm_mask[perm], n_dev * per_dev)
-    new_lm_index = inv_perm[p_lm]                 # position in permuted table
+    per_dev = max(int(np.ceil(NL / n_dev)), 1)
+    slot = owner * per_dev + np.arange(NL) // n_dev
+    Lp = np.zeros((n_dev * per_dev,) + L.shape[1:], L.dtype)
+    Lp[slot] = L
+    lm_mask_p = np.zeros(n_dev * per_dev, lm_mask.dtype)
+    lm_mask_p[slot] = lm_mask
 
     # group projection edges by owner device
     e_owner = owner[p_lm]
@@ -72,7 +77,7 @@ def shard_ba_problem(n_dev, L, lm_mask, p_kf, p_lm, p_meas, p_w, p_mask,
         k = len(sel)
         pk[d, :k] = p_kf[sel]
         # landmark index LOCAL to the device block
-        pl[d, :k] = new_lm_index[sel] - d * per_dev
+        pl[d, :k] = p_lm[sel] // n_dev
         pm[d, :k] = p_meas[sel]
         pw[d, :k] = p_w[sel]
         pmask[d, :k] = p_mask[sel]
@@ -94,7 +99,7 @@ def shard_ba_problem(n_dev, L, lm_mask, p_kf, p_lm, p_meas, p_w, p_mask,
                 lm_mask=lm_mask_p.reshape(n_dev, per_dev),
                 p_kf=pk, p_lm=pl, p_meas=pm, p_w=pw, p_mask=pmask,
                 ei=eip, ej=ejp, Z=Zp, omega=omp, pemask=pemask_p), \
-        perm, per_dev
+        slot, per_dev
 
 
 def optimize_ba_sharded(E0, free_pose, sharded, K, iterations: int,
@@ -222,7 +227,7 @@ def _cached_runner(mesh: Mesh, axis: str, solver: str, iterations: int,
             # reduce the lam-independent pose system ONCE per outer
             # iteration — previously Hpp/bp rode inside the per-trial psum
             # (and bp inside the trial's scale term), paying the collective
-            # up to 10x per outer iteration (VERDICT r3 item 5)
+            # up to 10x per outer iteration
             Hpp = jax.lax.psum(Hpp, axis)
             bp = jax.lax.psum(bp, axis)
             return Hpp, Hpl, Hll, bp, bl, jax.lax.psum(chi2, axis)

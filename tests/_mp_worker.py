@@ -3,7 +3,7 @@
 Each of the 2 processes hosts 2 virtual CPU devices; together they form one
 4-device global mesh spanning a process (DCN) boundary. The worker runs the
 REAL sharded-LM optimizer (parallel.sharded_lm) over that global mesh — the
-code path a multi-host TPU deployment would execute (SURVEY.md section 5.8)
+code path a multi-host deployment would execute (SURVEY.md section 5.8)
 — and prints the resulting chi2 + pose checksum for the parent to compare
 against the single-process result.
 

@@ -102,7 +102,7 @@ def test_sharded_ba_matches_single_device():
 
     n_dev = 4
     mesh = Mesh(np.array(jax.devices()[:n_dev]), ("dp",))
-    sharded, perm, per_dev = sharded_ba.shard_ba_problem(
+    sharded, slot, per_dev = sharded_ba.shard_ba_problem(
         n_dev, np.asarray(args["L0"]), np.asarray(args["lm_mask"]),
         np.asarray(args["p_kf"]), np.asarray(args["p_lm"]),
         np.asarray(args["p_meas"]), np.asarray(args["p_w"]),
@@ -114,10 +114,42 @@ def test_sharded_ba_matches_single_device():
         jnp.asarray(K), 10, 2.0, mesh)
     np.testing.assert_allclose(np.asarray(E1), np.asarray(E2),
                                rtol=1e-3, atol=1e-4)
-    # un-permute sharded landmarks and compare
-    L2 = np.asarray(L2s).reshape(-1, 3)[:len(perm)]
-    inv = np.argsort(perm)
-    np.testing.assert_allclose(np.asarray(L1)[:len(perm)], L2[inv],
+    # sharded landmarks back in input order, compared
+    L2 = np.asarray(L2s).reshape(-1, 3)[slot]
+    np.testing.assert_allclose(np.asarray(L1), L2, rtol=1e-3, atol=1e-3)
+
+
+def test_sharded_ba_uneven_landmarks_matches_single_device():
+    """10 landmarks on 4 devices (not a multiple of the device count): every
+    device block is padded on its own, so each projection edge points at its
+    own landmark and the sharded solve matches the single-device one."""
+    args, E_true, lms = make_problem(seed=5, n_lm=10)
+    inputs = [np.asarray(args[k]) for k in (
+        "L0", "lm_mask", "p_kf", "p_lm", "p_meas", "p_w", "p_mask", "ei",
+        "ej", "Z", "omega", "pemask")]
+    sharded, slot, per_dev = sharded_ba.shard_ba_problem(4, *inputs)
+    assert per_dev == 3 and sorted(slot) == sorted(set(slot))
+    table = sharded["L"].reshape(-1, 3)
+    np.testing.assert_array_equal(table[slot], inputs[0])
+    assert sharded["lm_mask"].reshape(-1).sum() == 10
+    # every edge's local index points at its landmark in its owner's block
+    for d in range(4):
+        k = sharded["p_mask"][d]
+        assert np.all((sharded["p_lm"][d][k] >= 0)
+                      & (sharded["p_lm"][d][k] < per_dev))
+    E1, L1 = ba.optimize_ba(
+        args["E0"], args["L0"], args["free_pose"], args["lm_mask"],
+        args["ei"], args["ej"], args["Z"], args["omega"], args["pemask"],
+        args["p_kf"], args["p_lm"], args["p_meas"], args["p_w"],
+        args["p_mask"], jnp.asarray(K), 10, 2.0)
+    mesh = Mesh(np.array(jax.devices()[:4]), ("dp",))
+    E2, L2s = sharded_ba.optimize_ba_sharded(
+        np.asarray(args["E0"]), np.asarray(args["free_pose"]), sharded,
+        jnp.asarray(K), 10, 2.0, mesh)
+    np.testing.assert_allclose(np.asarray(E1), np.asarray(E2),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(L1),
+                               np.asarray(L2s).reshape(-1, 3)[slot],
                                rtol=1e-3, atol=1e-3)
 
 
@@ -137,13 +169,13 @@ def test_sharded_ba_pcg_matches_dense():
     results = {}
     for n_dev in (1, 4):
         mesh = Mesh(np.array(jax.devices()[:n_dev]), ("dp",))
-        sharded, perm, per_dev = sharded_ba.shard_ba_problem(
+        sharded, slot, per_dev = sharded_ba.shard_ba_problem(
             n_dev, *shard_inputs)
         for solver in ("dense", "pcg"):
             E, Ls = sharded_ba.optimize_ba_sharded(
                 np.asarray(args["E0"]), np.asarray(args["free_pose"]),
                 sharded, jnp.asarray(K), 10, 2.0, mesh, solver=solver)
-            L = np.asarray(Ls).reshape(-1, 3)[:len(perm)][np.argsort(perm)]
+            L = np.asarray(Ls).reshape(-1, 3)[slot]
             results[(n_dev, solver)] = (np.asarray(E), L)
 
     for n_dev in (1, 4):

@@ -2,24 +2,21 @@
 
 The ETH3D presets are 739x458 (reference config/ETH3D_*.yaml; pcd_generator
 calibration groups) — neither dimension is a multiple of 32 (selector blocks)
-and natural cloud capacities like 3000 are not multiples of 128 (Pallas lane
-tiles). These tests drive the selector -> cloud -> align stack at exactly
-those shapes (VERDICT r1 item 10).
+and natural cloud capacities like 3000 are not multiples of the kernel
+blocks. These tests drive the selector -> cloud -> align stack at exactly
+those shapes.
 """
 
 import dataclasses
 
 import numpy as np
-import pytest
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from cvo_slam_tpu.config import CAMERA_PRESETS, CvoParams, FrontendParams
 from cvo_slam_tpu.cvo import engine
 from cvo_slam_tpu.frontend import device as dev
 from cvo_slam_tpu.frontend.pointcloud import create_pointcloud
-
-cv2 = pytest.importorskip("cv2")
+from cvo_slam_tpu.utils import imgproc
 
 ETH_CAM_SMALL = dataclasses.replace(
     CAMERA_PRESETS["ETH3D_1"], width=369, height=229,
@@ -30,11 +27,11 @@ ETH_FP = FrontendParams(num_want=900, cloud_capacity=1000)  # 1000 % 128 != 0
 def _frame(cam, seed=11):
     rng = np.random.default_rng(seed)
     H, W = cam.height, cam.width
-    tex = cv2.resize(rng.uniform(30, 220, (H // 8 + 1, W // 8 + 1, 3)
-                                 ).astype(np.float32), (W, H),
-                     interpolation=cv2.INTER_CUBIC)
+    tex = imgproc.resize_cubic(rng.uniform(30, 220, (H // 8 + 1, W // 8 + 1,
+                                                     3)).astype(np.float32),
+                               (W, H))
     bgr = np.clip(tex, 0, 255).astype(np.uint8)
-    gray = cv2.cvtColor(bgr, cv2.COLOR_RGB2GRAY)
+    gray = imgproc.rgb2gray(bgr)
     zz = (2.0 + 0.3 * np.sin(np.linspace(0, 3, W))[None, :]
           + 0.2 * np.cos(np.linspace(0, 2, H))[:, None]).astype(np.float32)
     depth = (zz * cam.depth_factor).astype(np.uint16)
@@ -92,30 +89,3 @@ def test_align_xla_ragged_capacity():
     # recovered motion is a small mostly-x translation
     assert abs(T[0, 3]) > 1e-4
     assert np.linalg.norm(T[:3, 3]) < 0.2
-
-
-def test_pallas_pad128_matches_unpadded():
-    """Non-128-multiple capacities route through _pad128; kernel stats equal
-    the unpadded jnp reference exactly (masked pads contribute zero)."""
-    from cvo_slam_tpu.ops import pairwise
-    from tests.test_pairwise import make_clouds
-    cap = 200   # not a multiple of 128 -> pads to 256
-    x, fx, mx, y, fy, my = make_clouds(3, 150, 140, cap=cap)
-    fixed = engine.PointCloud(jnp.asarray(x), jnp.asarray(fx), jnp.asarray(mx))
-    moving = engine.PointCloud(jnp.asarray(y), jnp.asarray(fy),
-                               jnp.asarray(my))
-    fp, mp = engine._pad128(fixed), engine._pad128(moving)
-    assert fp.positions.shape[0] == 256
-    p = CvoParams()
-    ell = jnp.float32(0.10)
-    ref_v, ref_n = pairwise.inner_product(jnp.asarray(y), jnp.asarray(fy),
-                                          jnp.asarray(my), jnp.asarray(x),
-                                          jnp.asarray(fx), jnp.asarray(mx),
-                                          ell, p)
-    from cvo_slam_tpu.cvo import pallas_kernels as pk
-    with pltpu.force_tpu_interpret_mode():
-        got_v, got_n = pk.pair_stats(mp.positions, mp.features, mp.mask,
-                                     fp.positions, fp.features, fp.mask,
-                                     ell, p)
-    np.testing.assert_allclose(float(got_v), float(ref_v), rtol=1e-4)
-    assert int(got_n) == int(ref_n)

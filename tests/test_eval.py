@@ -92,10 +92,10 @@ def test_cli_round_trip(tmp_path, capsys):
 
 @pytest.mark.slow
 def test_quality_regression_thresholds(tmp_path):
-    """CI-style end-to-end quality gate on a challenge-mode sequence
-    (VERDICT r1 item 2): 60 frames of fast rotation + exposure ramp through
-    the FULL pipeline must stay under an ATE threshold that tracks the
-    recorded RESULTS.md numbers."""
+    """CI-style end-to-end quality gate on a challenge-mode sequence: 60
+    frames of fast rotation + exposure ramp through the FULL pipeline must
+    stay under an ATE threshold that tracks the recorded RESULTS.md
+    numbers."""
     from cvo_slam_tpu.config import CameraConfig, FrontendParams, SlamConfig
     from cvo_slam_tpu.data import synthetic, tum
     from cvo_slam_tpu.app.run_slam import run
@@ -127,8 +127,8 @@ def test_quality_regression_thresholds(tmp_path):
 
 @pytest.mark.slow
 def test_quality_regression_low_texture(tmp_path):
-    """End-to-end gate on the weakest challenge mode (VERDICT r3: low
-    texture was the one ungated mode, tracking ATE ~10x the others): 60
+    """End-to-end gate on the weakest challenge mode (low texture was the
+    one ungated mode, tracking ATE ~10x the others): 60
     frames at 25% contrast through the full pipeline. Thresholds track the
     recorded RESULTS.md low_texture numbers with ~2x headroom."""
     from cvo_slam_tpu.config import CameraConfig, FrontendParams, SlamConfig
@@ -160,7 +160,7 @@ def test_quality_regression_low_texture(tmp_path):
 
 @pytest.mark.slow
 def test_quality_regression_noisy_loop(tmp_path):
-    """End-to-end gate on the sensor-realism mode (VERDICT r4 next 7): a
+    """End-to-end gate on the sensor-realism mode: a
     loop circuit over a multi-surface scene with the Kinect noise model
     (axial sigma ~ z^2, disparity quantization, edge/speckle dropout, RGB
     read noise) through the full pipeline. Thresholds track the recorded

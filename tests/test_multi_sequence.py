@@ -69,7 +69,7 @@ def test_lockstep_matches_independent(sequences):
 def test_lockstep_full_pipeline_matches_independent(sequences):
     """With the backend ON (per-sequence graphs: local-map LM, features,
     loop closure, BA), lockstep must still equal solo runs pose-for-pose —
-    the state machine is shared (VERDICT r1 item 7)."""
+    the state machine is shared."""
     cfg = SlamConfig.default_shipped().replace(frontend=SMALL_FRONTEND,
                                               Max_KF_interval=3,
                                               FinalOptimizationIterations=20)

@@ -150,3 +150,63 @@ def test_speculative_executor_matches_unpipelined(seq, monkeypatch):
         nxt = images[i + 1] if i + 1 < len(images) else None
         tracker2.update(img, next_frame=nxt)
     assert used["n"] >= 1, "speculation never engaged"
+
+
+def test_run_slam_without_opencv(tmp_path, monkeypatch):
+    """The main path (PNG IO, gray/HSV, ORB, loop closure, BA) runs with
+    OpenCV blocked: `import cv2` raises inside this run."""
+    import sys
+    from cvo_slam_tpu.app.run_slam import run
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401
+    folder = str(tmp_path)
+    gt = synthetic.make_sequence(folder, CAM, n_frames=8)
+    cfg = SlamConfig.default_shipped().replace(
+        FinalOptimizationIterations=20, Max_KF_interval=3,
+        frontend=SMALL_FRONTEND)
+    stats = run(folder, "associate.txt", CAM, cfg)
+    assert stats["frames"] == 8
+    ts, poses = tum.read_trajectory(os.path.join(folder,
+                                                 "SLAM_trajectory.txt"))
+    gt_ts = [f"{1000.0 + 0.05 * k:.6f}" for k in range(8)]
+    assert tum.ate_rmse(gt_ts, gt, ts, poses) < 0.05
+
+
+def test_build_tracker_requires_feature_layer(monkeypatch):
+    """A missing sparse-feature layer is an error, not a silent run without
+    loop closure and BA."""
+    import sys
+    from cvo_slam_tpu.app.run_slam import build_tracker
+    monkeypatch.setitem(sys.modules, "cvo_slam_tpu.features.orb", None)
+    cfg = SlamConfig.default_shipped().replace(frontend=SMALL_FRONTEND)
+    with pytest.raises(ImportError):
+        build_tracker(CAM, cfg)
+
+
+def test_background_warmup_surfaces_failure():
+    """A failing warmup is logged and raised again when the run checks it."""
+    from cvo_slam_tpu.app.run_slam import BackgroundWarmup
+    ok = BackgroundWarmup(lambda: None)
+    ok.check(timeout=30)
+
+    def boom():
+        raise ValueError("compile failed")
+
+    bad = BackgroundWarmup(boom)
+    with pytest.raises(RuntimeError) as info:
+        bad.check(timeout=30)
+    assert isinstance(info.value.__cause__, ValueError)
+
+
+def test_chip_smoke_refuses_cpu():
+    """chip_smoke.py exits non-zero without a GPU and prints no result."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,7 +1,6 @@
 """Correlate loop-closure edge QUALITY (measurement error vs ground truth)
 with the acceptance diagnostics (inner-product margin, cos_angle, matches)
-— the evidence base for the fast_rotation information-scaling fix
-(VERDICT r4 next 4).
+— the evidence base for the fast_rotation information-scaling fix.
 
 Usage: python tools/analyze_lc_quality.py <seq_folder> [...]
 Each folder needs loop_closure.txt, groundtruth.txt.

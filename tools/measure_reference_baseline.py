@@ -1,7 +1,8 @@
 """Measure the reference's per-frame CVO cost on this host (BENCH anchor).
 
-Builds the exact bench workload clouds (bench.build_bench_host_clouds),
-exports them to a binary file, compiles and runs the C++ replica
+Builds the exact bench workload clouds
+(cvo_slam_tpu.eval.workload.bench_host_clouds), exports them to a binary
+file, compiles and runs the C++ replica
 (cvo_slam_tpu/native/ref_cvo_baseline.cpp — the reference's kd-tree +
 triplet + quartic + per-pair-Hessian cost structure, biased in the
 reference's favor), and writes REF_BASELINE.json at the repo root, which
@@ -75,12 +76,12 @@ def main(argv=None):
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    import bench
     from cvo_slam_tpu.config import CAMERA_PRESETS, SlamConfig
+    from cvo_slam_tpu.eval.workload import bench_host_clouds
     cam = CAMERA_PRESETS["TUM1"]
     cfg = SlamConfig.default_shipped()
     print("building bench clouds ...", flush=True)
-    host_clouds = bench.build_bench_host_clouds(cam, cfg)
+    host_clouds = bench_host_clouds(cam, cfg)
 
     with tempfile.TemporaryDirectory() as d:
         bin_path = os.path.join(d, "ref_baseline")
